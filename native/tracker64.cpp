@@ -2,7 +2,7 @@
 //
 // The tracker is the one stage of the pipeline that is inherently
 // sequential, branchy, and tiny-state (a few hundred live tracks, a few
-// hundred detections per frame) — a poor fit for the TPU but microseconds
+// hundred detections per frame) — a poor fit for an accelerator but microseconds
 // of work per frame on a CPU core.  Running it on the host in float64 with
 // the reference's arithmetic semantics (ysmr/tracker.py:93-230,
 // ysmr/gsff.py:155-347) removes the last source of TRACK_ID divergence:

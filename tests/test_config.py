@@ -32,7 +32,7 @@ def test_create_and_get_roundtrip(tmp_ini):
     # gsff
     assert settings['number of LSFFs'] == 3
     assert settings['maximum horizon size'] == 30
-    # TPU section defaults
+    # [TPU SETTINGS] defaults
     assert settings['frame batch size'] >= 1
     assert settings['max detections per frame'] >= 1
     import cv2
@@ -67,7 +67,8 @@ def test_broken_ini_regenerated(tmp_path):
 
 
 def test_reference_era_ini_without_tpu_section(tmp_path):
-    """A tracking.ini written by the reference (no TPU section) still parses."""
+    """A tracking.ini written by the reference (no [TPU SETTINGS]) still
+    parses."""
     import configparser
     parser = configparser.ConfigParser(allow_no_value=True)
     defaults = default_config_dict()
@@ -100,3 +101,19 @@ def test_assertion_failure_regenerates(tmp_path):
     text = open(path).read().replace('number of lsffs = 3', 'number of lsffs = 1')
     open(path, 'w').write(text)
     assert get_configs(path) is None
+
+
+def test_ini_with_retired_pallas_key_loads(tmp_path):
+    """A tracking.ini written before the hand-written kernels were retired
+    still carries 'use pallas kernels' in [TPU SETTINGS]: it must load, and
+    the key is ignored."""
+    path = str(tmp_path / 'tracking.ini')
+    create_configs(path, open_editor=False)
+    text = open(path).read().replace(
+        '[TPU SETTINGS]\n', '[TPU SETTINGS]\nuse pallas kernels = True\n')
+    assert 'use pallas kernels' in text
+    open(path, 'w').write(text)
+    settings = get_configs(path)
+    assert settings is not None
+    assert 'use pallas kernels' not in settings
+    assert settings['run cc'] == 'auto'

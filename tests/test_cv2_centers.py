@@ -210,8 +210,7 @@ def test_production_path_matches_standalone():
                             edge_angles=tables['edge_angles'],
                             edge_valid=tables['edge_valid'],
                             edge_dx=tables['edge_dx'],
-                            edge_dy=tables['edge_dy'],
-                            use_pallas_sweep=False)
+                            edge_dy=tables['edge_dy'])
     # batched override contract: (T, D, ...) with T=1
     rect_b = {kk: v[None] for kk, v in rect.items()}
     tabs_b = {kk: tables[kk][None] for kk in

@@ -150,7 +150,7 @@ def test_degenerate_components():
 from ysmr_tpu import native
 
 
-@pytest.mark.skipif(not native.available(), reason='native lib not built')
+@pytest.mark.usefixtures('native_lib')
 def test_native_single_matches_cv2():
     rng = np.random.default_rng(1234)
     for _ in range(5000):
@@ -165,7 +165,7 @@ def test_native_single_matches_cv2():
                                    _bits(got[4])), pts.tolist()
 
 
-@pytest.mark.skipif(not native.available(), reason='native lib not built')
+@pytest.mark.usefixtures('native_lib')
 def test_native_batch_matches_cv2_full_chain():
     """Frame-batch API: packed pixels + det indices -> cv2-identical rects."""
     rng = np.random.default_rng(77)

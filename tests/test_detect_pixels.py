@@ -68,10 +68,9 @@ def test_pixels_equals_frames(rng, mode_val):
 @pytest.mark.parametrize('mode_val', [2.0, 0.0])
 @pytest.mark.parametrize('lum', [False, True])
 def test_sorted_compaction_equals_default(rng, mode_val, lum):
-    """The TPU sorted-run compaction path (detect_pixels.py, gated on
-    use_pallas) must produce identical tables to the scatter/gather
-    compaction, including luminosity sums and n_components."""
-    from ysmr_tpu.pipeline import detect_pixels as dp
+    """The sorted-run compaction path (detect_pixels.py, sort_compact)
+    must produce identical tables to the scatter/gather compaction,
+    including luminosity sums and n_components."""
     settings = _settings(mode_val, lum=lum)
     frames = _blob_frames(rng)
     t, h, w, _ = frames.shape
@@ -95,14 +94,7 @@ def test_sorted_compaction_equals_default(rng, mode_val, lum):
         args = (None, None, counts, None, frame_valid)
         kw['px_packed'] = np.stack([b['px_packed'] for b in batches])
     ref = detect_from_pixels(*args, **kw)
-    old = dp._FORCE_SORT_COMPACT
-    try:
-        dp._FORCE_SORT_COMPACT = True
-        dp.detect_from_pixels.clear_cache()
-        got = detect_from_pixels(*args, **kw)
-    finally:
-        dp._FORCE_SORT_COMPACT = old
-        dp.detect_from_pixels.clear_cache()
+    got = detect_from_pixels(*args, sort_compact=True, **kw)
     assert np.array_equal(np.asarray(got['n_components']),
                           np.asarray(ref['n_components']))
     assert np.array_equal(np.asarray(got['det_valid']),
@@ -122,7 +114,6 @@ def test_det_px_idx_and_skip_rect(rng, mode_val):
     import cv2
 
     from ysmr_tpu import native
-    from ysmr_tpu.pipeline import detect_pixels as dp
 
     settings = _settings(mode_val)
     frames = _blob_frames(rng)
@@ -141,14 +132,8 @@ def test_det_px_idx_and_skip_rect(rng, mode_val):
     det_px = np.asarray(full['det_px_idx'])
 
     # identical pixel->det mapping on the sorted-compaction and table paths
-    old = dp._FORCE_SORT_COMPACT
-    try:
-        dp._FORCE_SORT_COMPACT = True
-        dp.detect_from_pixels.clear_cache()
-        srt = detect_from_pixels(None, None, counts, None, frame_valid, **kw)
-    finally:
-        dp._FORCE_SORT_COMPACT = old
-        dp.detect_from_pixels.clear_cache()
+    srt = detect_from_pixels(None, None, counts, None, frame_valid,
+                             sort_compact=True, **kw)
     tbl = detect_from_pixels(None, None, counts, None, frame_valid,
                              use_table=True, **kw)
     assert np.array_equal(np.asarray(srt['det_px_idx']), det_px)

@@ -1,4 +1,4 @@
-"""End-to-end parity: synthetic video through our TPU pipeline and through the
+"""End-to-end parity: synthetic video through our JAX pipeline and through the
 reference implementation; track counts must match exactly, statistics within
 tolerance (BASELINE.md build target)."""
 

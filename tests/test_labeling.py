@@ -73,12 +73,14 @@ def test_compact_labels_reverse_raster_order(rng):
 
 
 def test_propagate_markers_matches_scipy(rng):
+    """The detection path's marker propagation (labeling.binary_reconstruct,
+    one frame at a time) == scipy's binary_propagation."""
     for seed in range(5):
         r = np.random.default_rng(seed)
         mask = _random_blobs(r)
         strict = _random_blobs(r, n=6) & mask  # markers subset of mask
         ref = binary_propagation(strict, mask=mask)
-        ours = np.asarray(lb.propagate_markers(mask, strict))
+        ours = np.asarray(lb.binary_reconstruct(mask[None], strict[None]))[0]
         assert np.array_equal(ours, ref)
 
 
@@ -262,8 +264,7 @@ def test_component_stats_sorted_runs_equivalent(rng, lum):
                                                max_tall=14)
     seg = np.where(active, np.minimum(seg, max_det), max_det).astype(np.int32)
     gray = (np.asarray(xs) * 7 + np.asarray(ys) * 3) % 251 if lum else None
-    kw = dict(gray_vals=gray, max_det=max_det, max_bh=max_bh,
-              use_pallas_hull=False)
+    kw = dict(gray_vals=gray, max_det=max_det, max_bh=max_bh)
     ref = lb.component_stats(xs, ys, seg, active, **kw)
     new = lb.component_stats(xs, ys, seg, active, sorted_runs=True,
                              frame_w=w, frame_h=h, **kw)

@@ -175,14 +175,14 @@ def test_resolve_batch_size_rules():
     from ysmr_tpu.pipeline.track_bacteria import resolve_batch_size
     sparse = {'frame batch size': 16, 'max detections per frame': 512}
     dense = {'frame batch size': 16, 'max detections per frame': 4096}
-    assert resolve_batch_size(sparse, 'pixels', 'tpu', False) == 64
-    assert resolve_batch_size(dense, 'pixels', 'tpu', False) == 64
+    assert resolve_batch_size(sparse, 'pixels', 'gpu', False) == 64
+    assert resolve_batch_size(dense, 'pixels', 'gpu', False) == 64
     assert resolve_batch_size(sparse, 'pixels', 'cpu', False) == 16
-    assert resolve_batch_size(sparse, 'frames', 'tpu', False) == 16
+    assert resolve_batch_size(sparse, 'frames', 'gpu', False) == 16
     assert resolve_batch_size({'frame batch size': 128,
                                'max detections per frame': 512},
-                              'pixels', 'tpu', False) == 128
-    assert resolve_batch_size(sparse, 'pixels', 'tpu', True) == 16
+                              'pixels', 'gpu', False) == 128
+    assert resolve_batch_size(sparse, 'pixels', 'gpu', True) == 16
     assert resolve_batch_size({'frame batch size': 32,
                                'max detections per frame': 512},
-                              'pixels', 'tpu', True) == 16
+                              'pixels', 'gpu', True) == 16

@@ -1,4 +1,4 @@
-"""Native C++ component tests (skipped when the library is not built)."""
+"""Native C++ component tests (skipped when the library cannot be built)."""
 
 import numpy as np
 import pytest
@@ -6,8 +6,7 @@ import pytest
 from ysmr_tpu import native
 
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason='native library not built')
+pytestmark = pytest.mark.usefixtures('native_lib')
 
 
 def test_format_rows_matches_python_repr():
@@ -88,8 +87,6 @@ def test_min_area_rect_batch_vs_cv2():
             assert out[i, 4] == pytest.approx(rang, abs=0.1)
 
 
-@pytest.mark.skipif(not native.has_fused_stage2(),
-                    reason='fused stage 2 not in this build')
 @pytest.mark.parametrize('mode_id', [0, 1])
 @pytest.mark.parametrize('white', [True, False])
 @pytest.mark.parametrize('c_mask,c_marker', [(-5.0, -10.0), (-1.5, -3.5),

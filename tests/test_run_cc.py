@@ -165,7 +165,7 @@ def test_detect_from_pixels_run_cc_equals_default():
     fv = np.ones(t, bool)
     fv[-1] = False
     kw = dict(h=h, w=w, max_det=64, max_bh=16, cc_iters=32,
-              include_luminosity=False, use_pallas=False)
+              include_luminosity=False)
     for dt in (True, False):
         for rdp, skip in ((False, False), (True, False), (True, True)):
             a = detect_from_pixels(None, None, counts, None, fv,
@@ -200,7 +200,7 @@ def test_det_run_idx_matches_det_px_expansion():
     fv = np.ones(t, bool)
     fv[-1] = False
     kw = dict(h=h, w=w, max_det=64, max_bh=16, cc_iters=32,
-              include_luminosity=False, use_pallas=False)
+              include_luminosity=False)
     for dt in (True, False):
         a = detect_from_pixels(None, None, counts, None, fv,
                                px_runs=runs[:, :512], run_counts=rcnt,
@@ -266,78 +266,3 @@ def test_encoder_row_bounded_runs():
         assert ret is not None and ret > 0
         np.testing.assert_array_equal(runs_n, runs)
         np.testing.assert_array_equal(rcnt_n, rcnt)
-
-
-class TestFusedPropagation:
-    """Fused Pallas fixpoint (ops/pallas_run_prop.py) vs the XLA loop.
-
-    The min fixpoint is unique, so outputs must be exactly equal. Runs the
-    kernel in interpreter mode (tests are CPU-only); the TPU-compiled path
-    was A/B-verified equal on the bench-scale synthetic (2026-08-20).
-    """
-
-    def _graph(self, img, marker, w):
-        runs, rcnt = _encode(img, marker=marker, w=w)
-        geo = run_cc._prepare(runs, rcnt, w=w)
-        win = run_cc.run_windows(geo, dilate=1)
-        link = run_cc.chain_mask(geo, win)
-        t, r = geo['rows'].shape
-        iota = np.broadcast_to(np.arange(r, dtype=np.int32)[None, :], (t, r))
-        import jax.numpy as jnp
-        init_weak = jnp.where(geo['rmark'], iota, iota + r)
-        return win, link, jnp.asarray(iota), init_weak
-
-    def test_fuzz_equal_to_xla(self):
-        from ysmr_tpu.ops.pallas_run_prop import propagate_min_fused
-        rng = np.random.default_rng(5)
-        for trial in range(12):
-            h = int(rng.integers(3, 30))
-            w = int(rng.integers(3, 48))
-            img = rng.random((h, w)) < rng.uniform(0.2, 0.85)
-            if not img.any():
-                continue
-            marker = (img & (rng.random((h, w)) < 0.3)).astype(np.uint8) * 255
-            win, link, iota, init_weak = self._graph(img, marker, w)
-            for init in (iota, init_weak):
-                ref = np.asarray(run_cc.propagate_min(init, win, link))
-                got = np.asarray(propagate_min_fused(init, win, link,
-                                                     interpret=True))
-                np.testing.assert_array_equal(got, ref)
-
-    def test_components_pipeline_interpret(self):
-        """run_cc_components(use_pallas=True, interpret) == XLA output."""
-        rng = np.random.default_rng(9)
-        for trial in range(6):
-            h = int(rng.integers(4, 24))
-            w = int(rng.integers(4, 40))
-            img = rng.random((h, w)) < rng.uniform(0.3, 0.7)
-            if not img.any():
-                continue
-            marker = (img & (rng.random((h, w)) < 0.25)).astype(np.uint8)
-            runs, rcnt = _encode(img, marker=marker * 255, w=w)
-            a = run_cc.run_cc_components(runs, rcnt, w=w,
-                                         double_threshold=True)
-            b = run_cc.run_cc_components(runs, rcnt, w=w,
-                                         double_threshold=True,
-                                         use_pallas=True, interpret=True)
-            for k in a:
-                np.testing.assert_array_equal(np.asarray(a[k]),
-                                              np.asarray(b[k]), err_msg=k)
-
-    def test_wide_tables_padding(self):
-        """Non-multiple-of-128 R exercises the pad path."""
-        from ysmr_tpu.ops.pallas_run_prop import propagate_min_fused
-        rng = np.random.default_rng(3)
-        img = rng.random((20, 40)) < 0.6
-        runs, rcnt = _encode(img, w=40, r=333)
-        geo = run_cc._prepare(runs, rcnt, w=40)
-        win = run_cc.run_windows(geo, dilate=1)
-        link = run_cc.chain_mask(geo, win)
-        t, r = geo['rows'].shape
-        assert r == 333
-        import jax.numpy as jnp
-        iota = jnp.broadcast_to(jnp.arange(r, dtype=jnp.int32)[None, :],
-                                (t, r))
-        ref = np.asarray(run_cc.propagate_min(iota, win, link))
-        got = np.asarray(propagate_min_fused(iota, win, link, interpret=True))
-        np.testing.assert_array_equal(got, ref)

@@ -94,7 +94,7 @@ def test_detect_from_pixels_runs_equals_pixels():
     fv = np.ones(t, bool)
     fv[-1] = False
     kw = dict(h=h, w=w, max_det=64, max_bh=16, cc_iters=32,
-              include_luminosity=False, use_pallas=False)
+              include_luminosity=False)
     for dt in (True, False):
         for rdp in (False, True):
             a = detect_from_pixels(None, None, counts, None, fv,

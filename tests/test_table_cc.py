@@ -2,9 +2,8 @@
 
 label_components_table / compact_labels_table must be exactly equal to the
 whole-frame image path for any pixel set; detect_from_pixels(use_table=True)
-must be exactly equal to the image path end to end. The table path is the
-CPU-backend production choice (gathers are cheap there); TPU keeps the
-Pallas VMEM stencil.
+must be exactly equal to the image path end to end. The table path is an
+opt-in ('use table cc').
 """
 
 import numpy as np

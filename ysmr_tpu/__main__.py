@@ -17,7 +17,7 @@ import sys
 def cli(argv=None):
     parser = argparse.ArgumentParser(
         prog='ysmr_tpu',
-        description='TPU-native bacterial video tracking and analysis.')
+        description='Accelerator-native bacterial video tracking and analysis.')
     parser.add_argument('paths', nargs='*', default=None,
                         help='video or .csv files to analyse; when omitted, '
                              'a file-selection dialog is used')

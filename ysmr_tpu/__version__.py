@@ -1,7 +1,7 @@
 """Version of ysmr_tpu.
 
 Mirrors the reference's version module (ysmr/__version__.py:11-13) but
-versions the TPU-native rebuild independently.
+versions the JAX rebuild independently.
 """
 
 VERSION = (0, 1, 0)

@@ -4,7 +4,7 @@
 The reference reads one frame at a time inside its Python hot loop
 (track_eval.py:156-366, ``cap.read()`` per iteration). Here decode runs on a
 background thread producing fixed-size frame batches through a bounded queue,
-so host decode overlaps device compute (double/triple buffering); the TPU
+so host decode overlaps device compute (double/triple buffering); the device
 never waits on the decoder once the pipeline is warm.
 
 Decoding itself uses OpenCV's C++ videoio (FFmpeg underneath) — the same

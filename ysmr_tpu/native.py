@@ -1,17 +1,80 @@
 #!/usr/bin/env python3
 """ctypes bindings for the native C++ runtime components (native/).
 
-Loads ``libysmr_native.so`` if built (``make -C native``); every entry point
-has a pure-Python fallback so the framework runs without the native library.
+The libraries are built from the sources in ``native/`` at first use
+(:func:`build`, which runs ``make`` for this host's CPU) and loaded from
+there; every entry point has a pure-Python fallback so the framework runs
+when no compiler is available.
 """
 
 import ctypes
+import fcntl
+import glob
 import os
+import shutil
+import subprocess
+import tempfile
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'native')
+_BUILD_RESULT = None
+
+
+def _stale(lib_path):
+    """True when the library is missing or older than any source."""
+    if not os.path.isfile(lib_path):
+        return True
+    built = os.path.getmtime(lib_path)
+    sources = glob.glob(os.path.join(_NATIVE_DIR, '*.cpp')) + \
+        glob.glob(os.path.join(_NATIVE_DIR, '*.h')) + \
+        [os.path.join(_NATIVE_DIR, 'Makefile')]
+    return any(os.path.getmtime(src) > built for src in sources)
+
+
+def build():
+    """Build the native libraries into ``native/`` if missing or stale.
+
+    ``make`` runs in a private copy of the sources under an exclusive file
+    lock, and each finished library is renamed into place, so concurrent
+    processes (test workers) neither race nor load a half-written file.
+    The core library is required; ``libysmr_avdec.so`` is built only where
+    the ffmpeg headers exist (see native/Makefile).
+
+    :return: (built_ok, message); ``built_ok`` is True when the core
+        library exists and is current afterwards
+    """
+    global _BUILD_RESULT
+    if _BUILD_RESULT is not None:
+        return _BUILD_RESULT
+    core = os.path.join(_NATIVE_DIR, 'libysmr_native.so')
+    with open(os.path.join(_NATIVE_DIR, '.build.lock'), 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale(core):
+            _BUILD_RESULT = (True, 'up to date')
+            return _BUILD_RESULT
+        work = tempfile.mkdtemp(prefix='.build-', dir=_NATIVE_DIR)
+        try:
+            for src in os.listdir(_NATIVE_DIR):
+                if src.endswith(('.cpp', '.h')) or src == 'Makefile':
+                    shutil.copy2(os.path.join(_NATIVE_DIR, src), work)
+            proc = subprocess.run(['make', '-C', work, '-j4'],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                _BUILD_RESULT = (False, (proc.stderr or proc.stdout)[-2000:])
+                return _BUILD_RESULT
+            for lib in glob.glob(os.path.join(work, '*.so')):
+                os.replace(lib, os.path.join(_NATIVE_DIR,
+                                             os.path.basename(lib)))
+            _BUILD_RESULT = (True, 'built')
+        except OSError as err:  # no make/compiler on this host
+            _BUILD_RESULT = (False, str(err))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return _BUILD_RESULT
 
 
 def _load():
@@ -19,9 +82,8 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        'native', 'libysmr_native.so')
-    if not os.path.isfile(path):
+    path = os.path.join(_NATIVE_DIR, 'libysmr_native.so')
+    if not build()[0]:
         return None
     try:
         lib = ctypes.CDLL(path)
@@ -158,9 +220,8 @@ def _load_avdec():
     _AVDEC_TRIED = True
     if _load() is None:  # stage-1 buffers live in the core library
         return None
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        'native', 'libysmr_avdec.so')
-    if not os.path.isfile(path):
+    path = os.path.join(_NATIVE_DIR, 'libysmr_avdec.so')
+    if not os.path.isfile(path) or _stale(path):
         return None
     try:
         lib = ctypes.CDLL(path)

@@ -66,9 +66,8 @@ def greedy_assign(distance_matrix, obj_valid, det_valid):
 
 def greedy_assign_from_candidates(row_min, cand_col, obj_valid, det_valid):
     """Greedy matching from per-row (min distance, argmin column) — the
-    only projections of the distance matrix the matcher consumes. Callers
-    may produce them without materialising the matrix
-    (ops/pallas_assign.row_min_argmin)."""
+    only projections of the distance matrix the matcher consumes (the
+    row-sharded matcher computes them per shard, parallel/sharding.py)."""
     r = row_min.shape[0]
     c = det_valid.shape[0]
     row_min = jnp.where(obj_valid, row_min, BIG)

@@ -40,10 +40,10 @@ edge with global sorts and (D, 4, K) gathers — 23 s per 64-frame dense
 batch): only edges whose EXACT area is within f32 rounding noise of the
 exact minimum can win cv2's f32 area comparison, so the caliper arithmetic
 runs for at most ``_N_CAND`` pruned candidates per component.  The
-pruning areas come from one MXU projection matmul over the hull corners;
+pruning areas come from one broadcast projection over the hull corners;
 next-vertex attributes ride packed suffix-cummins and support vertices
 resolve through small mask contractions — no (D, K)-output gather or
-scatter remains (each costs ~60 ms per dense batch on this TPU).
+scatter remains.
 
 Known limits (``ok`` returns False and callers fall back to the exact
 center): components wider than the f32 slope-key collision bound
@@ -127,9 +127,9 @@ def _strict_corner_masks(xl, row_valid, *, side):
 def _sel(a, idx, k):
     """Gather-free row-wise selection: out[d, c] = a[d, idx[d, c]].
 
-    TPU gathers cost ~20-25 ms per 2M OUTPUT elements even for tiny
-    tables; a masked compare-select-reduce over the small k axis fuses
-    into one pass and is exact (exactly one mask hit per output).
+    A masked compare-select-reduce over the small k axis fuses into one
+    pass instead of a gather, and is exact (exactly one mask hit per
+    output).
     """
     m = idx[..., None] == jnp.arange(k, dtype=jnp.int32)
     return jnp.sum(jnp.where(m, a[:, None, :] if a.ndim == 2 else a, 0),
@@ -158,8 +158,7 @@ def cv2_centers_from_tables(row_min_x, row_max_x, row_valid, min_y,
                             corner_l, corner_r, isq_table, *, max_bh):
     """cv2.minAreaRect centers (f32, bit-exact) from row-extreme tables.
 
-    Gather/scatter-free on the wide axes (TPU gathers at (D, K)-output
-    sizes cost ~60 ms per dense batch each): the hull corners are first
+    Gather/scatter-free on the wide axes: the hull corners are first
     COMPACTED to ``_K_HULL`` packed slots per component with a fused
     compare-select-reduce (cycle order preserved, so "next vertex" becomes
     a shift and every later tensor shrinks ~6x), pruning areas come from

@@ -2,11 +2,19 @@
 """Double-single (two-float32) arithmetic — error-free transformations.
 
 Every value is an unevaluated sum ``hi + lo`` with ``|lo| <= ulp(hi)/2``
-(~48-bit effective mantissa). No float64 anywhere, so the ops run natively
-on the TPU VPU. XLA does not reassociate floating-point expressions and FMA
-contraction cannot break the identities used here (it only tightens the
-error terms), so the transformations survive compilation on every backend
-(verified against a float64 oracle in tests/test_gsff.py).
+(~48-bit effective mantissa). No float64 anywhere, so the ops run in the
+vector units at float32 rate on any backend. XLA does not reassociate
+floating-point expressions. XLA:CPU contracts a multiply followed by an add
+into one fused multiply-add; XLA:GPU rounds the product first (both
+measured with the same jitted ``a * b + c``, H100 and x86). The error-free
+transformations stay exact either way: every product inside
+:func:`two_prod` is exact, so a contracted multiply-add rounds the same
+(``p + e == a * b`` held for 2**20 random pairs on both backends). The
+products that are not exact, such as the cross terms ``xh * yl + xl * yh``
+of :func:`mul`, round differently when contracted, so CPU and GPU results
+agree to the double-single error, not bit for bit (verified against a
+float64 oracle on the CPU in tests/test_gsff.py and on the GPU in
+tests/test_on_card.py).
 
 Used by ops/gsff.py (the filter bank must track the reference's float64
 trajectories through a self-feedback loop) and ops/labeling.py (exact

@@ -30,7 +30,7 @@ update at all.
 Precision: the FIR estimates, the measurement ring, and the emitted
 corrected/predicted positions are computed in **double-single arithmetic**
 (each value an unevaluated sum of two float32, ~48-bit effective mantissa;
-Dekker/Knuth error-free transformations, no float64 anywhere — TPU-friendly).
+Dekker/Knuth error-free transformations, no float64 anywhere).
 Plain float32 is NOT enough here: a disappeared-but-alive track feeds its own
 prediction back as the measurement (tracker.py:219-227), and that closed loop
 amplifies float32 rounding into a systematic coasting drift of ~0.02 px/frame

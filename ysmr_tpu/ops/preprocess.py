@@ -70,7 +70,12 @@ def adaptive_gaussian_mean(img):
     """The 11x11 Gaussian-weighted local mean used by cv2.adaptiveThreshold.
 
     float32 separable convolution with the CV_32F kernel, BORDER_REPLICATE,
-    rounded half away from zero to integers. Input int32, output int32.
+    rounded half to even. Input int32, output int32. The host recipe
+    (native/ysmr_native.cpp) accumulates each pass as one product and ten
+    fused multiply-adds; this sum rounds each product unless the compiler
+    contracts it, so the two can differ where the accumulator lands within
+    an ulp of a rounding tie (seen on pure-noise frames, never on the
+    bacteria clips).
     """
     k = jnp.asarray(_K11_F32)
     p = jnp.pad(img.astype(jnp.float32),
@@ -79,9 +84,8 @@ def adaptive_gaussian_mean(img):
     h = p.shape[-2]
     tmp = sum(p[..., :, i:w - 10 + i] * k[i] for i in range(11))
     acc = sum(tmp[..., i:h - 10 + i, :] * k[i] for i in range(11))
-    # cv2 rounds with rint on the f32 accumulator; ties (exact .5) do not
-    # occur for realistic inputs, and floor(x+0.5) matched cv2 empirically.
-    return jnp.floor(acc + 0.5).astype(jnp.int32)
+    # cv2 (and the native host recipe) round with rint: half to even
+    return jnp.round(acc).astype(jnp.int32)
 
 
 def adaptive_threshold(img, c_offset, white_on_dark):

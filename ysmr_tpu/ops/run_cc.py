@@ -12,9 +12,8 @@ maximal runs at marker changes, at 31 pixels, and at row ends). Min-label
 propagation over the (T, R) run tables replaces whole-frame stencil
 labeling over (T, H*W) pixel planes — at the reference geometry runs are
 ~60x fewer elements than pixels, and every op here is a table sort, a
-shifted elementwise min, or a compact-table gather (the only irregular ops
-that are cheap on TPU; reference hot loop:
-/root/reference/ysmr/track_eval.py:273-283 via cv2.findContours).
+shifted elementwise min, or a compact-table gather (reference hot loop:
+track_eval.py:273-283 via cv2.findContours).
 
 Edge set and exactness
 ----------------------
@@ -78,8 +77,8 @@ def _searchsorted_batch(data_key, query_key, *, right):
     False) or key <= q (True). Data keys must be non-decreasing per row
     wherever they matter (invalid entries use keys sorted to the end);
     the merge itself only needs a stable combined sort, so this holds by
-    construction. Vmapped jnp.searchsorted lowers to a gather loop (~15 ms
-    at these shapes on TPU); two lax.sorts cost well under a millisecond.
+    construction. Vmapped jnp.searchsorted lowers to a per-element gather
+    loop; two lax.sorts replace it.
 
     :param data_key: (T, R) int32
     :param query_key: (T, Q) int32
@@ -246,9 +245,9 @@ def propagate_min(init, win, link, *, max_iters=64, check_every=2):
         _, changed, it = state
         return changed & (it < max_iters)
 
-    lab0 = init
-    lab, _, _ = jax.lax.while_loop(
-        cond, body, (lab0, jnp.bool_(True), jnp.int32(0)))
+    with jax.named_scope('run_cc_fixpoint'):
+        lab, _, _ = jax.lax.while_loop(
+            cond, body, (init, jnp.bool_(True), jnp.int32(0)))
     return lab
 
 
@@ -258,39 +257,24 @@ def _prepare(px_runs, run_counts, *, w):
     return geo
 
 
-def _make_prop(use_pallas, interpret, check_every):
-    """Pick the propagation backend: XLA loop or the fused Pallas kernel.
-
-    The fused kernel (ops/pallas_run_prop.py) runs the whole fixpoint in
-    one launch with the tables in VMEM — the XLA loop's per-step table ops
-    are launch-overhead-bound on this chip (~7 ms vs ~0.1 ms per batch
-    pass, chained-timing A/B 2026-08-20).
-    """
-    if not use_pallas:
-        return partial(propagate_min, check_every=check_every)
-    from ysmr_tpu.ops.pallas_run_prop import propagate_min_fused
-    return partial(propagate_min_fused, interpret=interpret)
-
-
 @partial(jax.jit, static_argnames=('w', 'connectivity', 'max_iters',
-                                   'check_every', 'use_pallas', 'interpret'))
+                                   'check_every'))
 def label_runs(px_runs, run_counts, *, w, connectivity=8, max_iters=64,
-               check_every=2, use_pallas=False, interpret=False):
+               check_every=2):
     """Connected-component root (min run index) per run; invalid = self."""
     geo = _prepare(px_runs, run_counts, w=w)
     win = run_windows(geo, dilate=1 if connectivity == 8 else 0)
     link = chain_mask(geo, win)
     t, r = geo['rows'].shape
     iota = jnp.broadcast_to(jnp.arange(r, dtype=jnp.int32)[None, :], (t, r))
-    prop = _make_prop(use_pallas, interpret, check_every)
-    return prop(iota, win, link, max_iters=max_iters)
+    return propagate_min(iota, win, link, max_iters=max_iters,
+                         check_every=check_every)
 
 
 @partial(jax.jit, static_argnames=('w', 'double_threshold', 'max_iters',
-                                   'check_every', 'use_pallas', 'interpret'))
+                                   'check_every'))
 def run_cc_components(px_runs, run_counts, *, w, double_threshold,
-                      max_iters=64, check_every=2, use_pallas=False,
-                      interpret=False):
+                      max_iters=64, check_every=2):
     """Full detect labeling on run tables: reconstruction + 8-conn CC.
 
     Pipeline (all on (T, R) tables): optional marker reconstruction
@@ -313,7 +297,7 @@ def run_cc_components(px_runs, run_counts, *, w, double_threshold,
     t, r = geo['rows'].shape
     iota = jnp.broadcast_to(jnp.arange(r, dtype=jnp.int32)[None, :], (t, r))
     t_off = jnp.arange(t, dtype=jnp.int32)[:, None] * r
-    prop = _make_prop(use_pallas, interpret, check_every)
+    prop = partial(propagate_min, check_every=check_every)
     if double_threshold:
         # both connectivities' windows in ONE sort-merge pair; the 8-conn
         # windows are remapped onto the compacted table below instead of
@@ -473,10 +457,8 @@ def det_px_from_runs(px_runs, run_counts, comp_rev_run, *, f, max_det):
     return jnp.where(active & (g >= 0) & (g < max_det), g, -1)
 
 
-@partial(jax.jit, static_argnames=('w', 'max_iters', 'check_every',
-                                   'use_pallas', 'interpret'))
-def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64, check_every=2,
-                     use_pallas=False, interpret=False):
+@partial(jax.jit, static_argnames=('w', 'max_iters', 'check_every'))
+def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64, check_every=2):
     """Marker reconstruction on runs (binary_propagation semantics).
 
     A run survives iff its 4-connected mask component contains at least
@@ -491,6 +473,6 @@ def keep_marked_runs(px_runs, run_counts, *, w, max_iters=64, check_every=2,
     t, r = geo['rows'].shape
     iota = jnp.broadcast_to(jnp.arange(r, dtype=jnp.int32)[None, :], (t, r))
     init = jnp.where(geo['rmark'], iota, iota + r)
-    prop = _make_prop(use_pallas, interpret, check_every)
-    lab = prop(init, win, link, max_iters=max_iters)
+    lab = propagate_min(init, win, link, max_iters=max_iters,
+                        check_every=check_every)
     return geo['valid'] & (lab < r)

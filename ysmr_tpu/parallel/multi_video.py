@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Sharded multi-video tracking: stage 1 for N videos over a device mesh.
 
-This is the TPU-native replacement for the reference's per-video process
+This is the device-mesh replacement for the reference's per-video process
 pool (main.py:281-313, ``mp.Pool(maxtasksperchild=1)``): instead of one OS
 process per file, a batch of videos is sharded over the ``videos`` axis of a
 ``jax.sharding.Mesh`` and every device runs the fused detect + tracker scan

@@ -2,17 +2,17 @@
 """Device-mesh parallelism for the tracking pipeline.
 
 The reference's only parallelism is a process pool with one worker per video
-(main.py:281-313). The TPU-native equivalents (SURVEY.md section 2.2):
+(main.py:281-313). The device-mesh equivalents (SURVEY.md section 2.2):
 
 * **Video-batch data parallelism** — a batch of videos sharded over the
   ``videos`` mesh axis with ``shard_map``; each device runs the full fused
   detect + tracker scan on its own videos. Per-video independence means no
   collectives on the hot path; results gather at the end of a batch.
 * **Dense-scene assignment sharding** — for scenes whose R x C distance
-  matrix dwarfs one chip (BASELINE config 5: 10k+ objects), rows of the
+  matrix dwarfs one device (BASELINE config 5: 10k+ objects), rows of the
   matrix are sharded over the mesh: each device computes the distance block
   for its row shard and reduces it to per-row (min, argmin); those O(R)
-  vectors are all-gathered (riding ICI) and the greedy winner resolution —
+  vectors are all-gathered and the greedy winner resolution —
   O(R + C) — runs replicated. The O(R*C*K) compute and memory are fully
   sharded; only O(R) crosses the interconnect.
 """
@@ -21,15 +21,7 @@ import os
 
 import jax
 import jax.numpy as jnp
-try:  # modern API (supports check_vma); the experimental module is deprecated
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_legacy
-
-    def shard_map(*args, check_vma=None, **kwargs):
-        if check_vma is not None:
-            kwargs['check_rep'] = check_vma  # legacy spelling
-        return _shard_map_legacy(*args, **kwargs)
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ysmr_tpu.ops import assignment as asg
@@ -41,11 +33,12 @@ _DISTRIBUTED = False
 def init_distributed(coordinator=None, num_processes=None, process_id=None):
     """Join a multi-process (multi-controller) JAX cluster.
 
-    The TPU-native counterpart of a multi-host pod slice (SURVEY.md section
+    The multi-host counterpart of the single-process mesh (SURVEY.md section
     5, "Distributed communication backend"): every host process calls this
     before any device use, the coordinator wires the processes together,
     and ``jax.devices()`` then lists the GLOBAL device set — ``make_mesh``
-    meshes over it unchanged, with DCN carrying the cross-process axis.
+    meshes over it unchanged, with the host network carrying the
+    cross-process axis.
 
     Parameters default to the ``YSMR_DIST_COORDINATOR`` (host:port),
     ``YSMR_DIST_NPROCS`` and ``YSMR_DIST_PROCESS_ID`` environment
@@ -75,16 +68,16 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None):
 def make_mesh(n_devices=None, axis='videos', platform=None, hosts=None):
     """A device mesh over the first ``n_devices`` devices.
 
-    With ``hosts=None`` this is the 1-axis single-slice mesh (all
-    parallelism rides ICI). With ``hosts=H`` the same devices are laid out
-    as a 2-axis ``(hosts, chips)`` mesh — the multi-host/DCN shape: the
-    leading axis maps to host groups (devices of one process stay
-    contiguous in ``jax.devices()`` order, so each row is one host's
-    chips and the slow DCN links only ever carry the hosts axis). The
-    video batch shards over the FLATTENED product of all axes
+    With ``hosts=None`` this is the 1-axis single-host mesh (the devices
+    of one host reach each other all to all). With ``hosts=H`` the same
+    devices are laid out as a 2-axis ``(hosts, devices)`` mesh — the
+    multi-host shape: the leading axis maps to host groups (devices of one
+    process stay contiguous in ``jax.devices()`` order, so each row is one
+    host's devices and the slower host network only ever carries the hosts
+    axis). The video batch shards over the FLATTENED product of all axes
     (:func:`video_pspec`), so per-video work needs no cross-host
     collectives at all; only the dense-scene assignment reduces over the
-    mesh, and its O(R) row summaries are the only DCN traffic.
+    mesh, and its O(R) row summaries are the only cross-host traffic.
 
     Multi-process runs initialise ``jax.distributed`` first and build this
     mesh from the global device list (single-controller JAX); on one
@@ -92,9 +85,8 @@ def make_mesh(n_devices=None, axis='videos', platform=None, hosts=None):
     exercised by the virtual-device tests.
 
     :param platform: optional backend to draw devices from (e.g. 'cpu' for
-        the virtual-device dry run on a TPU-pinned interpreter — switching
-        ``jax_platforms`` after backend init has no effect, but asking for
-        the CPU backend's devices explicitly always works)
+        the virtual-device dry run in a process whose default backend is
+        an accelerator)
     :param hosts: optional host-group count; must divide the device count
     """
     init_distributed()  # joins a configured multi-process cluster (no-op
@@ -145,16 +137,6 @@ def make_multi_video_step(mesh, *, detect_kwargs, tracker_kwargs,
     from ysmr_tpu.pipeline import detect as det
     from ysmr_tpu.pipeline import tracker as trk
 
-    # the Pallas gates must come from the mesh's actual devices: after a
-    # mid-process platform switch (CPU-mesh dry run on a TPU-pinned
-    # interpreter) global backend queries can disagree with the mesh
-    detect_kwargs = dict(detect_kwargs)
-    mesh_is_tpu = all(d.platform == 'tpu' for d in mesh.devices.flat)
-    detect_kwargs.setdefault('use_pallas_sweep', mesh_is_tpu)
-    detect_kwargs.setdefault('use_pallas_cc', mesh_is_tpu)
-    tracker_kwargs = dict(tracker_kwargs)
-    tracker_kwargs.setdefault('use_pallas_assign', mesh_is_tpu)
-
     def per_video(video_frames, video_valid, state):
         gray = pp.bgr_to_gray(video_frames)
         blurred = pp.blur3(gray)
@@ -202,14 +184,9 @@ def sharded_greedy_assign(mesh, obj_xy, obj_valid, det_xy, det_valid):
     :param det_xy: (C, K) float32, replicated
     :return: same contract as greedy_assign
     """
-    mesh_is_tpu = all(d.platform == 'tpu' for d in mesh.devices.flat)
-
     def local2(obj_xy_l, obj_valid_l, det_xy_r, det_valid_r):
-        if mesh_is_tpu:
-            # fused streaming search: no per-shard (R/n, C) matrix
-            from ysmr_tpu.ops.pallas_assign import row_min_argmin
-            return row_min_argmin(obj_xy_l, obj_valid_l, det_xy_r,
-                                  det_valid_r)
+        # the (R/n, C) distance block is an elementwise producer of the two
+        # row reductions; XLA fuses it, so no block reaches device memory
         d = asg.pairwise_distances(obj_xy_l, obj_valid_l, det_xy_r, det_valid_r)
         row_min = jnp.min(d, axis=1)
         cand_col = jnp.argmin(d, axis=1).astype(jnp.int32)

@@ -15,7 +15,6 @@ import jax
 import jax.numpy as jnp
 
 from ysmr_tpu.ops import labeling as lb
-from ysmr_tpu.ops.labeling import _devices_are_tpu as lb_devices_are_tpu
 from ysmr_tpu.ops import preprocess as pp
 
 
@@ -58,13 +57,11 @@ def prepare_batch(frames_bgr, needs_sums=False):
 @partial(jax.jit, static_argnames=('mode', 'white_on_dark', 'offset',
                                    'double_delta', 'max_det', 'max_bh',
                                    'cc_iters', 'include_luminosity',
-                                   'lum_win', 'use_pallas_sweep',
-                                   'use_pallas_cc'))
+                                   'lum_win'))
 def detect_from_blurred(gray, blurred, frame_valid, thresholds, *,
                         mode, white_on_dark, offset, double_delta,
                         max_det, max_bh, cc_iters, include_luminosity,
-                        lum_win=48, use_pallas_sweep=None,
-                        use_pallas_cc=False):
+                        lum_win=48):
     """Detection tables from preprocessed frames.
 
     :param gray: (T, H, W) int32
@@ -78,42 +75,25 @@ def detect_from_blurred(gray, blurred, frame_valid, thresholds, *,
     mask, markers = pp.detect_masks(blurred, mode, offset, double_delta,
                                     white_on_dark, global_thresholds=thresholds)
     mask = mask & frame_valid[:, None, None]
-    if use_pallas_cc:
-        from ysmr_tpu.ops.pallas_cc import label_components_whole_frame
 
-        def cc_batch(m, conn):
-            return label_components_whole_frame(m, connectivity=conn,
-                                                max_iters=cc_iters)
-    else:
-        def cc_batch(m, conn):
-            return jax.vmap(lambda a: lb.label_components(
-                a, connectivity=conn, max_iters=cc_iters))(m)
     if markers is not None:
+        # keep the 4-connected mask components that hold a marker pixel
+        # (bit-packed reconstruction: 32 frames per uint32 plane)
         markers = markers & frame_valid[:, None, None]
-        if use_pallas_cc:
-            # bit-packed binary propagation: 32 frames per int32 plane —
-            # far cheaper than a full min-label pass (pallas_cc)
-            from ysmr_tpu.ops.pallas_cc import binary_reconstruct
-            mask = binary_reconstruct(mask, markers, max_iters=cc_iters)
-        else:
-            lab4 = cc_batch(mask, 4)
-            mask = jax.vmap(lambda m, k, l: lb.propagate_markers(
-                m, k, connectivity=4, max_iters=cc_iters, labels=l))(
-                    mask, markers, lab4)
+        mask = lb.binary_reconstruct(mask, markers, max_iters=cc_iters)
 
-    labels8 = cc_batch(mask, 8)
+    labels8 = jax.vmap(lambda a: lb.label_components(
+        a, connectivity=8, max_iters=cc_iters))(mask)
 
     def per_frame(m, g, labels):
         comp, n = lb.compact_labels(labels, m, max_det=max_det)
         tables = lb.component_tables(comp, m, gray=None,
-                                     max_det=max_det, max_bh=max_bh,
-                                     use_pallas_hull=use_pallas_sweep)
+                                     max_det=max_det, max_bh=max_bh)
         rect = lb.min_area_rect(tables['points'], tables['points_valid'],
                                 edge_angles=tables['edge_angles'],
                                 edge_valid=tables['edge_valid'],
                                 edge_dx=tables['edge_dx'],
-                                edge_dy=tables['edge_dy'],
-                                use_pallas_sweep=use_pallas_sweep)
+                                edge_dy=tables['edge_dy'])
         valid = tables['count'] > 0
         if include_luminosity:
             # reference-exact: mean gray over the FILLED ROTATED RECTANGLE
@@ -139,8 +119,7 @@ def detect_from_blurred(gray, blurred, frame_valid, thresholds, *,
             'n_components': n_components}
 
 
-def detect_batch(frames_bgr, frame_valid, config, threshold_state=None,
-                 use_pallas=None):
+def detect_batch(frames_bgr, frame_valid, config, threshold_state=None):
     """Full host-coordinated detection for one frame batch.
 
     For mean-threshold mode this performs the two-phase flow: device stats ->
@@ -165,8 +144,6 @@ def detect_batch(frames_bgr, frame_valid, config, threshold_state=None,
     else:
         gray, blurred = prepare_batch(frames_bgr, needs_sums=False)
         thresholds = jnp.zeros((t,), jnp.int32)
-    if use_pallas is None:
-        use_pallas = lb_devices_are_tpu()
     return detect_from_blurred(
         gray, blurred, frame_valid, thresholds,
         mode=config.mode, white_on_dark=config.white_on_dark,
@@ -174,5 +151,4 @@ def detect_batch(frames_bgr, frame_valid, config, threshold_state=None,
         max_det=config.max_det, max_bh=config.max_bh,
         cc_iters=config.cc_iters,
         include_luminosity=config.include_luminosity,
-        lum_win=config.lum_win,
-        use_pallas_sweep=use_pallas, use_pallas_cc=use_pallas)
+        lum_win=config.lum_win)

@@ -8,15 +8,15 @@ Implementation is shared-core: both track-overview figures (raw XY and
 re-origined rose) run through one scatter routine, and the colour bar is a
 standard ``fig.colorbar`` on a ScalarMappable rather than a dedicated
 gridspec column. Written against current matplotlib/seaborn APIs.
+
+matplotlib (and seaborn, for the violin plots) are imported when a plot is
+drawn, so the package and the tracking stages import without them.
 """
 
+import importlib
 import logging
 
-import matplotlib
-matplotlib.use('Agg')  # headless by default; annotate/display paths use cv2
-import matplotlib as mpl  # noqa: E402
-import matplotlib.pyplot as plt  # noqa: E402
-import numpy as np  # noqa: E402
+import numpy as np
 
 __all__ = ['angle_distribution_plot', 'large_xy_plot', 'rose_graph', 'violin_plot']
 
@@ -28,11 +28,28 @@ def _log():
     return logging.getLogger('ysmr').getChild(__name__)
 
 
+def _require(module):
+    """Import a plotting dependency, naming it when it is missing."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as err:
+        raise ImportError(
+            '{} is required to draw plots; install it or switch the plot '
+            'outputs off in tracking.ini'.format(module.split('.')[0])
+        ) from err
+
+
+def _pyplot():
+    matplotlib = _require('matplotlib')
+    matplotlib.use('Agg')  # headless; annotate/display paths use cv2
+    return _require('matplotlib.pyplot')
+
+
 def _finish(fig, save_path, dpi, verbose=True):
     fig.savefig(save_path, dpi=dpi)
     if verbose:
         _log().debug('Figure written: %s', save_path)
-    plt.close(fig)
+    _pyplot().close(fig)
 
 
 def angle_distribution_plot(df, bins_number, plot_title_name, save_path, dpi=300):
@@ -53,7 +70,7 @@ def angle_distribution_plot(df, bins_number, plot_title_name, save_path, dpi=300
     counts = np.histogram(df.loc[np.asarray(contributes), 'angle_diff'],
                           edges)[0]
 
-    fig = plt.figure(figsize=_A4_LANDSCAPE)
+    fig = _pyplot().figure(figsize=_A4_LANDSCAPE)
     ax = fig.add_subplot(projection='polar')
     ax.set_theta_zero_location('N')
     ax.set_theta_direction(-1)
@@ -75,6 +92,8 @@ def _track_overview(df, x_col, y_col, title, save_path, *, scale=1.0,
         col = df['travelled_dist'] if 'travelled_dist' in df else \
             df['distance_colour']
         dist_max = col.max()
+    plt = _pyplot()
+    mpl = _require('matplotlib')
     fig, ax = plt.subplots(figsize=_A4_LANDSCAPE)
     fig.subplots_adjust(left=0.05, right=0.95)
     ax.set_axisbelow(True)
@@ -148,7 +167,8 @@ def violin_plot(df, save_path, category, cut_off_category, cut_off_list,
                 y_min=None, y_max=None):
     """Seaborn violin split by category, annotated with count/median/mean
     per violin (reference plot_functions.py:260-370)."""
-    import seaborn as sns
+    plt = _pyplot()
+    sns = _require('seaborn')
     y_limits = (y_min or None, y_max or None)
     font_md, font_sm = 8, 6
     plt.rcParams.update({
